@@ -1,7 +1,7 @@
 """Out-of-core scRNA pipeline: dataset larger than device memory.
 
 Composes the streaming surfaces end-to-end WITHOUT ever holding the
-full matrix — the workflow for h5ad files larger than RAM/HBM:
+full matrix — the workflow for h5ad files larger than RAM or device memory:
 
   write a chunked h5ad -> iter_h5ad_chunks row slabs ->
   StreamingSparsePCA.partial_fit (Gram accumulation on device) ->

@@ -1,11 +1,11 @@
-"""single-algebra-tpu: TPU-native sparse linear algebra & dimensionality reduction.
+"""single_algebra_tpu: sparse linear algebra & dimensionality reduction in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability surface of
+A ground-up JAX/XLA rebuild of the capability surface of
 SingleRust/single-algebra v0.9.2 (sparse CSR/CSC statistics, Normalize/Log1P
 preprocessing, SparsePCA / MaskedSparsePCA over Lanczos or randomized SVD,
-similarity measures, t-SNE), designed for TPU: padded-ELL layouts feeding
-MXU SpMM kernels, jitted SVD loops, and shard_map row-sharding over device
-meshes.
+similarity measures, t-SNE), run on an NVIDIA GPU: padded-ELL layouts
+feeding SpMM and densify-then-contract products, jitted SVD loops, and
+shard_map row-sharding over device meshes.
 """
 
 from .types import (  # noqa: F401

@@ -5,7 +5,7 @@ semantics, RBConfiguration quality with a resolution parameter). The
 hot path is the native C++ core (``native/leiden.cpp`` — queue-based
 local moving + refinement + aggregation, Traag et al. 2019): community
 detection is a pointer-chasing irregular-graph workload that belongs on
-the host, sitting between two TPU stages (kNN graph construction
+the host, sitting between two device stages (kNN graph construction
 upstream, DE / embedding downstream). A pure-Python Louvain-style
 fallback keeps the API available without a compiler
 (``SINGLE_ALGEBRA_TPU_NO_NATIVE=1``).

@@ -1,11 +1,11 @@
 """Differential expression: ``rank_genes_groups`` over device kernels.
 
 The post-clustering step every scRNA pipeline runs (scanpy's
-``tl.rank_genes_groups``), built TPU-first on this library's primitives:
+``tl.rank_genes_groups``), built accelerator-first on this library's primitives:
 
 * **t-test / t-test_overestim_var** — per-group means and variances
   (zeros included) come from the grouped one-hot SpMM stats
-  (``SparseMatrix._batch_spmm``): one MXU pass per moment for ALL
+  (``SparseMatrix._batch_spmm``): one matmul pass per moment for ALL
   groups, O(nnz * n_groups) total, no densify. The reference exposes
   the same grouped-moment machinery as its ``*_batch`` trait ops
   (``/root/reference/src/sparse/mod.rs:172-208``); this module is the
@@ -14,7 +14,7 @@ The post-clustering step every scRNA pipeline runs (scanpy's
   processed in column blocks: each block is scatter-densified to
   ``[B, n]`` on device, tie-run bounds come from ONE key-value sort plus
   cumulative scans (scattered back through the carried slot index), and
-  per-group rank sums reduce with one one-hot matmul on the MXU. No
+  per-group rank sums reduce with one one-hot matmul. No
   [n, n] anything; peak memory is a few ``[B, n]`` f32 buffers.
 
 Only p-length statistics reach the host; p-value transforms (Student-t /
@@ -254,8 +254,7 @@ def _rank_block_sparse(ed, ei, nz, member, col_map, n1, n_member,
     # per-element tie-run bounds from ONE key-value sort + cumulative
     # scans, scattered back by the carried slot index. (A vmapped
     # searchsorted pair computes the same bounds but lowers to
-    # binary-search gather loops — measured as ~the entire wilcoxon
-    # cost at [4096, 15k]: 42 s/call against ~0.2 s for the sort.)
+    # binary-search gather loops, far slower than the one sort.)
     s, si = jax.lax.sort_key_val(x, w_iota, dimension=-1)
     jpos = w_iota  # [B, W] position index, reused
     newrun = jnp.concatenate(

@@ -6,7 +6,7 @@ reference provides no way to *produce* one — its ecosystem computes HVG
 masks externally. This module closes that gap with the two standard
 single-cell recipes (Seurat- and CellRanger-flavor dispersion ranking),
 built entirely on this library's fused column-stat kernels, so the O(nnz)
-work runs on the TPU and only the p-length gene-score vectors reach the
+work runs on the device and only the p-length gene-score vectors reach the
 host.
 
 Seurat flavor (expects log1p-normalized input, like ``scanpy``'s
@@ -372,7 +372,7 @@ def _pearson_var_graph(ed, ei, nz, g, t_pad, theta, clip, row_block, n_real):
     gene blocks ([nb, GB, w] / [nb, GB]), ``t_pad`` the per-cell totals
     zero-padded to a multiple of ``row_block``. For each gene block the
     zero-entry part sum_i f(t_i * p_g) is accumulated over row blocks
-    ([row_block, GB] VPU tiles), then the stored entries swap their
+    ([row_block, GB] elementwise tiles), then the stored entries swap their
     zero-part term for the true residual — O(n p) elementwise + O(nnz),
     all on device, with only p-length vectors reaching the host.
     Cells/genes with zero total contribute zero residuals (no NaNs).

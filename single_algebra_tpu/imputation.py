@@ -75,9 +75,9 @@ def magic(
 
     # kNN-graph diffusion against a WIDE dense operand is a gather-bound
     # worst case for the ELL SpMM (the [rows, W, k] gather budget forces
-    # ~100-row blocks -> hundreds of sequential steps; measured 51 s warm
-    # at n=30k). When the [n, n] bf16 hi/lo densification fits HBM, the
-    # MXU runs each diffusion step as 4 dense passes (~read-bound ms);
+    # ~100-row blocks -> hundreds of sequential steps). When the [n, n]
+    # bf16 hi/lo densification fits device memory, each diffusion step
+    # is 4 dense matmul passes;
     # densified ON DEVICE from the tiny graph payload.
     dense_ok = DensifiedOperator.fits(
         (n, n),

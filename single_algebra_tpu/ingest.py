@@ -5,7 +5,7 @@ embedding space (project the query with the reference's fitted PCA —
 ``SparsePCA.transform`` — before calling), then labels transfer by
 inverse-distance-weighted kNN vote and continuous values (e.g. the
 reference's UMAP coordinates) by the same weighted average. The kNN is
-the blocked cross-set MXU kernel (``neighbors.cross_knn``); the vote is
+the blocked cross-set matmul kernel (``neighbors.cross_knn``); the vote is
 one one-hot matmul.
 """
 

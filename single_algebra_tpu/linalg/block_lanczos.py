@@ -1,8 +1,8 @@
-"""Block Golub-Kahan-Lanczos bidiagonalization — the MXU-shaped Lanczos.
+"""Block Golub-Kahan-Lanczos bidiagonalization — the matmul-shaped Lanczos.
 
 The scalar GKL in :mod:`.lanczos` advances the Krylov space one vector at a
 time: every step is two rank-1 matvecs (``[n,1]`` products — the worst
-possible MXU shape) plus reorthogonalization, and the steps are strictly
+possible matmul shape) plus reorthogonalization, and the steps are strictly
 sequential. The block variant advances ``b`` vectors per step:
 
 * each step's products are ``A @ [p, b]`` / ``A^T @ [n, b]`` — real matmul
@@ -39,7 +39,7 @@ __all__ = ["block_lanczos_svd"]
 
 
 def _qr_tall(X: jnp.ndarray):
-    """(Q, R) for a tall-skinny block; CholeskyQR2 on big f32 blocks (MXU),
+    """(Q, R) for a tall-skinny block; CholeskyQR2 on big f32 blocks (matmuls),
     Householder otherwise."""
 
     if X.shape[0] >= 16384 and X.dtype == jnp.float32:

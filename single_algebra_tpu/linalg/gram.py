@@ -1,16 +1,14 @@
 """Gram-matrix PCA engine: exact PCA in two data passes, row-bucketed.
 
-The one-hot tiled SpMM pays ~wt VPU ops per dense element per product, and
-a randomized-SVD fit makes ~32 such passes — the TPU-native alternative for
-tall-skinny matrices (n >> p, p small enough that the p x p Gram matrix is
-cheap) is the classic covariance method restructured for the MXU:
+A randomized-SVD fit makes ~32 sparse products; for tall-skinny matrices
+(n >> p, p small enough that the p x p Gram matrix fits on the device)
+the classic covariance method needs only two passes over the data:
 
 1. **Densify-and-contract once**: row slabs of the column-tiled payload are
-   expanded to dense ``D_s [p, S]`` tiles by one one-hot Pallas pass
-   (``tiled_ell_densify_t``) and immediately contracted ``G += D_s @ D_s^T``
-   on the MXU inside a ``lax.fori_loop``. One pass over the data instead of
-   ~32; the Gram flops ride the MXU at bf16 speed when the values are
-   bf16-exact (raw counts always are).
+   expanded to dense ``D_s [p, S]`` tiles (``ops.tiled.tiled_ell_densify_t``,
+   one XLA scatter) and immediately contracted ``G += D_s @ D_s^T`` on the
+   tensor cores inside a ``lax.fori_loop``. The contraction runs in int8 or
+   bf16 when the values allow it exactly (raw counts always do).
 2. **Solve in p-space**: eigenvectors of the (optionally centered) Gram
    matrix are the right singular vectors of A; ``eig(G_c) = s^2``. Small
    Grams (p <= 4096) get an exact ``eigh``; larger ones the jitted
@@ -20,13 +18,12 @@ cheap) is the classic covariance method restructured for the MXU:
 
 **Row bucketing** (the padding killer): a single global layout pads every
 (row, tile) group to the width of the heaviest row, so one dense row
-multiplies the one-hot work of EVERY row. Here rows are sorted into
+multiplies the densify work of EVERY row. Here rows are sorted into
 width classes (8, 16, 32, ... slots/tile) and each bucket gets its own
-payload densified at its own width — the one-hot cost tracks the
-per-row structure instead of the global max (measured 2-5x less padded
-work at scRNA-like densities). G is row-order invariant, so bucketing is
-free there; products/projections gather through a stored permutation
-(one [n, k] take).
+payload densified at its own width, so the densify cost tracks the
+per-row structure instead of the global max. G is row-order invariant, so
+bucketing is free there; products/projections gather through a stored
+permutation (one [n, k] take).
 
 The Gram matrix is computed once per matrix and cached, so repeated fits
 (different k, masks, seeds) cost only the tiny p-space solve plus one
@@ -58,18 +55,21 @@ __all__ = [
     "GramPCAEngine",
     "gram_matrix",
     "gram_pca_graph",
+    "gram_tier",
     "topk_psd_eigh",
     "solve_gram_topk",
 ]
 
-_SLAB = 8192  # rows densified per Gram/projection step (large-n regime)
+# rows densified per Gram/projection step (large-n regime); untuned on
+# the GPU
+_SLAB = 8192
 
 
 def _slab_for(n: int) -> int:
-    """Row-slab granularity: full 8192 at scale, 1024 for small inputs so
-    per-bucket padding stays proportionate (kernels need R % block == 0)."""
+    """Row-slab granularity: full ``_SLAB`` at scale, 1024 for small inputs
+    so per-bucket padding stays proportionate."""
 
-    return 8192 if n >= 65536 else 1024
+    return _SLAB if n >= 65536 else 1024
 
 
 def _width_class(w: int) -> int:
@@ -127,7 +127,7 @@ def _solve_topk(
     so resolving the top k to the f32 floor (~1e-6) needs the sketch to
     extend well past k — a bare l = k+10 leaves ~1e-3-class leakage when
     eigengaps near rank k are modest. Each extra sketch column costs only
-    one more MXU lane against the already-resident G, so the floor is
+    one more column of products against the already-resident G, so the floor is
     cheap insurance."""
 
     n_f = jnp.asarray(n, jnp.float32)
@@ -173,9 +173,8 @@ class _CenteredGram:
     form stores the f32 intermediate ``G @ B`` at the UNCENTERED scale —
     entries carry ``c mu_i (mu^T B)_k`` terms that the rank-1 correction
     then cancels, so every power iteration and the final sigma
-    projection inherit ~``eps32 * |G@B|/|Gc@B|`` relative noise (the
-    measured 6e-7..1.1e-6 exact-G solve plateau, see ``gram_matrix``'s
-    f32-floor note). After deflation ``mu^T Bp ~ 0`` so ``G @ Bp`` is
+    projection inherit ~``eps32 * |G@B|/|Gc@B|`` relative noise (a
+    ~1e-6 solve plateau, see ``gram_matrix``'s f32-floor note). After deflation ``mu^T Bp ~ 0`` so ``G @ Bp`` is
     born at the centered scale; the only uncentered-scale rounding left
     is the one-time ``g_mu``, a single rank-1 direction whose error
     enters the spectrum via one projection instead of compounding per
@@ -232,7 +231,7 @@ class GramPCAEngine:
     ``[nt * wt_c, R_c]``; ``pos`` maps natural row -> bucketed position;
     ``gidx`` maps bucketed position -> natural row (n = padding sentinel).
     ``meta = (wt_max, ntiles, ct, exact, i8)`` (wt_max informational;
-    ``i8`` = integer values in [-127, 127], gates the int8 MXU Gram);
+    ``i8`` = integer values in [-127, 127], gates the int8 Gram tier);
     ``bwidths`` the per-bucket (wt_c, R_c) pairs (static).
     """
 
@@ -284,7 +283,7 @@ class GramPCAEngine:
         # budget and off this engine)
         try:
             if m.values_int8_exact():
-                ws_item = 1  # int8 MXU path densifies to 1-byte slabs
+                ws_item = 1  # int8 tier densifies to 1-byte slabs
             elif m.values_bf16_exact():
                 ws_item = 2
             else:
@@ -298,44 +297,37 @@ class GramPCAEngine:
             # carries (~0.53 ppb^2 f32) coexist with the assembled G
             # during the scatter/mirror pass — in the rb-aligned case
             # too, which includes the flagship pp=30720=15*2048 shape
-            # (advisor r4: keying this on pp % rb under-charged it)
             ppb = -(-pp // rb) * rb
             nb = ppb // rb
             total += nb * (nb + 1) // 2 * rb * rb * 4
             if pp % rb:
                 # plus the [ppb, ppb] assembly buffer: it coexists with
                 # the [pp, pp] slice result (charged in the base term)
-                # during the final slice (measured OOM at 1M x 30k
-                # ct=512 where this was uncharged)
+                # during the final slice (leaving it uncharged ran out
+                # of memory at 1M x 30k, ct=512)
                 total += ppb * ppb * 4
         cache[col_tile] = (plan, total, slab, ntiles)
         return cache[col_tile]
 
     @staticmethod
     def hbm_budget_bytes() -> int:
-        """Usable HBM for the bucketed Gram plan. The plan already
-        accounts for every large resident buffer (payload + G + the two
-        slab workspaces), so only genuine XLA temporaries need headroom —
-        a 0.8 fraction, unlike :meth:`DensifiedOperator.hbm_budget_bytes`
-        whose 0.6 reserves the randomized solve's [n, k]-class sketch
-        workspace on top of a payload-only estimate."""
+        """Usable device memory for the bucketed Gram plan. The plan
+        already accounts for every large resident buffer (payload + G +
+        the two slab workspaces), so only genuine XLA temporaries need
+        headroom — a 0.8 fraction, unlike
+        :meth:`DensifiedOperator.hbm_budget_bytes` whose 0.6 reserves the
+        randomized solve's [n, k]-class sketch workspace on top of a
+        payload-only estimate. The CPU reports no limit and gets a fixed
+        12 GiB."""
 
-        import jax as _jax
+        from .. import platform
 
-        try:
-            stats = _jax.devices()[0].memory_stats() or {}
-            limit = stats.get("bytes_limit") or stats.get(
-                "bytes_reservable_limit"
-            )
-            if limit:
-                return int(limit * 0.8)
-        except Exception:
-            pass
-        return 12 << 30
+        limit = platform.device_memory_limit()
+        return 12 << 30 if limit is None else int(limit * 0.8)
 
     @classmethod
     def choose_col_tile(cls, m, budget_bytes: int | None = None):
-        """Smallest column tile whose bucketed payload fits the HBM budget.
+        """Smallest column tile whose bucketed payload fits the device budget.
         Returns ``(col_tile, payload_bytes)`` — the cheapest candidate even
         when none fits, so callers decide via ``fits()``."""
 
@@ -357,7 +349,7 @@ class GramPCAEngine:
     @classmethod
     def fits(cls, m, budget_bytes: int | None = None) -> bool:
         n, p = m.shape
-        if p > 40960:  # G itself would crowd out HBM
+        if p > 40960:  # G itself would crowd out device memory
             return False
         if budget_bytes is None:
             budget_bytes = cls.hbm_budget_bytes()
@@ -421,7 +413,7 @@ class GramPCAEngine:
     def _densify(self, b: int, i, out_dtype):
         """Slab i of bucket b -> dense [Pp, slab]."""
 
-        from ..ops.pallas.spmm_kernel import tiled_ell_densify_t
+        from ..ops.tiled import tiled_ell_densify_t
 
         nt, ct = self.meta[1], self.meta[2]
         wt, rc = self.bwidths[b]
@@ -432,11 +424,8 @@ class GramPCAEngine:
         tl = jax.lax.dynamic_slice(
             self.blocal[b], (0, i * slab), (self.blocal[b].shape[0], slab)
         )
-        interpret = jax.default_backend() != "tpu"
         return tiled_ell_densify_t(
-            td, tl, wt=wt, ntiles=nt, col_tile=ct,
-            block_rows=min(1024, slab),
-            out_dtype=out_dtype, interpret=interpret,
+            td, tl, wt=wt, ntiles=nt, col_tile=ct, out_dtype=out_dtype,
         )  # [Pp, slab]
 
     def _slab_dot(self, b: int, i, M, transposed: bool):
@@ -451,9 +440,9 @@ class GramPCAEngine:
             D = self._densify(b, i, jnp.bfloat16)
             # 3-term operand split (2-term's ~2^-17 dropped residual is a
             # first-order sigma error — see DensifiedOperator._precise);
-            # the barriers inside bf16_terms hide the rounding from the
-            # simplifier, which otherwise folds f32->bf16->f32 to
-            # identity and zeroes the residual terms (measured on-chip)
+            # the barriers inside bf16_terms keep the simplifier from
+            # folding f32->bf16->f32 to identity, which would zero the
+            # residual terms
             dot = lambda v: jax.lax.dot_general(
                 D, v,
                 dimension_numbers=(dims, ((), ())),
@@ -545,27 +534,34 @@ def _gram_block(pp: int) -> int | None:
     blocked graph costs ~nb^2/2 extra ops to compile). The slab is padded
     up to a block multiple — zero rows contribute exact zeros to G.
 
-    Block size measured on v5e at 400k x 30720 (independent pair
-    carries): rb=2048 -> 2.55 s, rb=6144 -> 3.03 s — the larger block's
-    ~13% extra flops (pairs cover (ppb^2 + ppb*rb)/2) and coarser
-    pipelining beat its ~2.7x lower operand re-read traffic, so HBM
-    re-reads are NOT the bottleneck at this shape. Going SMALLER was
-    also tried (round 4, ``benchmarks/sweep_gram_block.py``): rb=1024
-    and rb=1536 both RESOURCE_EXHAUST 16 GB HBM at pp=30,720 (finer
-    blocks keep the same ~0.53 pp^2 carry total but XLA's buffer
-    assignment for the larger pair count no longer fits alongside the
-    [ppb, ppb] assembly). At 2.55 s the pass runs at ~80% of the chip's
-    bf16 MXU peak (2 * n * ppb^2 * 0.53 flops) — flops-bound, so 2048
-    stands as effectively optimal."""
+    2048 was chosen on a 16 GB accelerator and is untuned on the GPU: a
+    larger block does ~(ppb^2 + ppb*rb)/2 flops against fewer operand
+    re-reads, a smaller one raises the pair count and the carries'
+    bookkeeping."""
 
     return 2048 if pp > 4096 else None
+
+
+def gram_tier(eng: GramPCAEngine) -> str:
+    """The contraction tier :func:`gram_matrix` uses: ``'int8'``,
+    ``'bf16'`` or ``'f32'``.
+
+    int8: integer values in [-127, 127] (raw counts, the dominant scRNA
+    case) make int8 x int8 -> int32 slab products EXACT (slab <= 8192
+    terms x 127^2 < 2^31) at half the densified-slab traffic of bf16."""
+
+    exact, i8 = eng.meta[3], eng.meta[4]
+    if exact and i8 and _slab_for(eng.shape[0]) * 127 ** 2 < 2 ** 31:
+        return "int8"
+    return "bf16" if exact else "f32"
 
 
 @partial(jax.jit, static_argnames=("sym", "rb"))
 def gram_matrix(
     eng: GramPCAEngine, *, sym: bool = True, rb: int | None = None
 ) -> jnp.ndarray:
-    """``A^T A`` as ``[Pp, Pp]`` f32 — slab densify + MXU contraction.
+    """``A^T A`` as ``[Pp, Pp]`` f32 — slab densify + tensor-core
+    contraction.
 
     Row-order invariant, so bucketing needs no permutation here. Three
     value tiers, chosen by what the stored values support (gates in
@@ -573,41 +569,34 @@ def gram_matrix(
 
     - **int8** (integers in [-127, 127] — raw counts, the dominant scRNA
       case): slabs densify to 1-byte tiles and contract int8 x int8 ->
-      int32 on the MXU at 2x the bf16 peak with EXACT per-slab products
-      (slab <= 8192 terms x 127^2 < 2^31; the int32 partial folds into
-      the f32 cross-slab carry, the same accumulation class as bf16).
-    - **bf16** (bf16-exact values, e.g. counts <= 256): native-bf16 MXU
+      int32 with EXACT per-slab products (slab <= 8192 terms x 127^2 <
+      2^31); the int32 partial is cast to f32 (rounding partials above
+      2^24) and folds into the f32 cross-slab carry, the same accumulation
+      class as bf16.
+    - **bf16** (bf16-exact values, e.g. counts <= 256): native-bf16
       contraction, exact products.
     - **f32** (general values): f32 slabs, HIGHEST-precision contraction
-      (6 bf16 passes, still one data pass overall).
+      (full f32, no TF32; still one data pass overall).
 
     **Symmetric-half contraction** (``sym=True``, the default for wide
     Grams): ``D @ D^T`` is symmetric, so only the lower-triangular block
     pairs are computed — ``G[r, c] += D_r @ D_c^T`` for r >= c with
     2048-row blocks — and the strict-lower blocks are mirrored once at
-    the end. nb(nb+1)/2 of nb^2 block products ≈ 0.53x the MXU flops of
-    the naive full dot at pp = 30,720; this pass is flops-bound (the
-    one-hot densify is ~10x cheaper), so the saving is real wall time
-    (measured at 400k x 30k: see results_large_tpu.json warm_full_s).
+    the end. nb(nb+1)/2 of nb^2 block products ≈ 0.53x the flops of the
+    naive full dot at pp = 30,720; the pass is flops-bound (the densify
+    moves ~pp * slab bytes per slab against ~pp^2 * slab flops), so the
+    saving is real wall time.
 
     f32 floor note: cross-slab accumulation drifts ~eps*sqrt(n_slabs) and
     the randomized large-Gram solve itself plateaus near ~1e-6 relative
-    on eigenvalues (measured; an exact-G sweep plateaus at 6e-7..1.1e-6
-    across oversampling/iteration settings). Kahan-compensating the
-    accumulation was tried and reverted: it needs three [pp, pp] buffers
-    live (OOM at pp = 30,720 on 16 GB HBM) and cannot push the combined
-    error below the solve's own f32 floor. At the 400k x 30k flagship
-    shape the measured end-to-end EV error is 2.1e-6; sub-1e-6 at this
-    width needs the f64 path (x64 mode — 3.1e-8 measured on-chip, r2).
+    on eigenvalues. Kahan-compensating the accumulation would need three
+    [pp, pp] buffers live and cannot push the combined error below the
+    solve's own f32 floor; sub-1e-6 at wide shapes needs the f64 path
+    (x64 mode).
     """
 
     exact = eng.meta[3]
-    # int8 MXU path: integer values in [-127, 127] (raw counts, the
-    # dominant scRNA case) make int8 x int8 -> int32 slab products EXACT
-    # (slab <= 8192 terms x 127^2 < 2^31) at 2x the bf16 MXU peak and
-    # half the densified-slab HBM traffic; the int32 partial is folded
-    # into the f32 cross-slab carry, same accumulation class as bf16
-    i8 = exact and eng.meta[4] and _slab_for(eng.shape[0]) * 127 ** 2 < 2 ** 31
+    i8 = gram_tier(eng) == "int8"
     pp = eng.p_padded
     slab = _slab_for(eng.shape[0])
 
@@ -675,11 +664,9 @@ def gram_matrix(
 
     # each lower-triangular block pair accumulates in its OWN carry: with
     # a single [pp, pp] carry the per-pair dynamic_update_slice chain
-    # SERIALIZES all nb(nb+1)/2 dots through one buffer (measured 3.08 s
-    # at 400k x 30720 — barely better than the 2x-flops naive dot); with
-    # independent carries each dot fuses with its own add and the MXU
-    # pipeline stays fed. The pair carries total ~0.53 pp^2 f32 — LESS
-    # than one padded G
+    # serializes all nb(nb+1)/2 dots through one buffer; with independent
+    # carries each dot fuses with its own add. The pair carries total
+    # ~0.53 pp^2 f32 — LESS than one padded G
     S = tuple(
         jnp.zeros((rb, rb), jnp.float32) for _ in range(len(pairs))
     )
@@ -701,7 +688,7 @@ def gram_matrix(
 
     # assemble: scatter the pair blocks into G and mirror the strict-lower
     # ones — one pass of block-sized copies (a whole-G tril/transpose
-    # would need two more [pp, pp] buffers; OOM headroom at pp = 30,720)
+    # would need two more [pp, pp] buffers)
     G = jnp.zeros((ppb, ppb), jnp.float32)
     for idx, (r, c) in enumerate(pairs):
         G = jax.lax.dynamic_update_slice(G, S[idx], (r * rb, c * rb))
@@ -778,7 +765,7 @@ def gram_pca_graph(
             Vp = jnp.pad(vt.T, ((0, pp - vt.shape[1]), (0, 0)))
 
         # _slab_dot contracts orthonormal V as a bf16 hi+lo pair on exact
-        # payloads (two MXU passes, f32 accumulation) so no first-order
+        # payloads (two bf16 passes, f32 accumulation) so no first-order
         # rounding enters the scores
         T = jnp.take(eng._project_bucketed(Vp), eng.pos, axis=0)
         if center_T:

@@ -1,13 +1,13 @@
 """Golub-Kahan-Lanczos truncated SVD as a jitted XLA loop.
 
-TPU-native replacement for ``single_svdlib::lanczos::svd_las2`` (SVDLIBC
+Device-native replacement for ``single_svdlib::lanczos::svd_las2`` (SVDLIBC
 las2 lineage) as pinned by the reference call sites
 (``svd_las2(matrix, n_components, iterations, end_interval, kappa, seed)``,
 reference ``src/dimred/pca/sparse/mod.rs:136-144``). Rather than translating
 las2's selective-orthogonalization bookkeeping (designed for scalar CPUs),
 we run Golub-Kahan bidiagonalization with FULL reorthogonalization — at
 k<=O(100) components the extra dense projections are a rounding error on the
-MXU and give far better numerical behavior than kappa-threshold selective
+matmul and give far better numerical behavior than kappa-threshold selective
 reorthogonalization.
 
 Two execution modes, both single compiled graphs:

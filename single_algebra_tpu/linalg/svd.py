@@ -1,13 +1,13 @@
 """Randomized truncated SVD and the deterministic sign convention.
 
-TPU-native rebuild of ``single-svdlib::randomized`` as pinned by the
+JAX rebuild of ``single-svdlib::randomized`` as pinned by the
 reference's call sites (``randomized_svd(matrix, n_components, n_oversamples,
 n_power_iterations, normalizer, center, seed, verbose)`` at
 ``src/dimred/pca/sparse/mod.rs:170-179``; ``svd_flip(u, vt, u_based=false)``
 at ``sparse/mod.rs:201-206``). Halko-Martinsson-Tropp randomized range
 finding with oversampling and normalized power iterations, expressed as a
 jitted XLA computation over the operator seam — the sketch SpMM ``A @ Omega``
-and power passes run on the SpMM kernel; QR/LU/small-SVD run on the MXU via
+and power passes run on the SpMM kernel; QR/LU/small-SVD run as matmuls via
 ``jnp.linalg``.
 
 Seeding uses ``jax.random`` — reproducible per seed, but not bitwise equal
@@ -40,25 +40,22 @@ class SvdResult(NamedTuple):
 def cholesky_qr2(Y: jnp.ndarray) -> jnp.ndarray:
     """Orthonormal basis of range(Y) via two shifted-CholeskyQR rounds.
 
-    Tall-skinny QR built from MXU Gram matrices + tiny Cholesky factors —
-    an order of magnitude faster than Householder QR on TPU for
+    Tall-skinny QR built from Gram matrices (matmuls) + tiny Cholesky
+    factors — far fewer sequential steps than Householder QR for
     [n >> l] sketches. The first round's diagonal shift keeps the
     Cholesky factorization positive-definite even when Y is very
     ill-conditioned; the second (unshifted) round restores orthogonality
     to ~sqrt(eps).
 
-    **Column-norm rescue (round 5).** The MXU self-Gram ``Y^T Y`` at
-    HIGHEST precision under-measures the DIAGONAL by a systematic
-    ~2^-16 ≈ 1.4e-5 on TPU (measured at n = 100k: the returned Q's
-    column norms come out 1 + (0.6..0.9)e-5 long while off-diagonals
-    sit at ~4e-9, at every conditioning from 1e2 to 1e8 — the bf16
-    multi-pass decomposition drops the always-positive lo*lo mass of
-    squares). Since ``B = A_c^T Q`` inherits those norms, every
-    A-space randomized engine's explained variance carried a UNIFORM
-    ~1.4e-5 relative bias — the constant per-rank deficit measured in
-    benchmarks/probe_deflation.py, immune to solver budget. The cure is
-    one VPU pass: re-measure the column norms elementwise (unbiased
-    f32 reduce, no MXU decomposition) and rescale.
+    **Column-norm rescue.** A self-Gram ``Y^T Y`` computed through a
+    multi-pass bf16 decomposition of f32 can under-measure the DIAGONAL
+    by a systematic ~2^-16 (the dropped lo*lo terms of squares are
+    always positive), leaving Q's column norms ~1e-5 long. Since
+    ``B = A_c^T Q`` inherits those norms, every A-space randomized
+    engine's explained variance would carry a UNIFORM relative bias of
+    that size, immune to solver budget. The cure is one elementwise
+    pass: re-measure the column norms (plain f32 reduce, no matmul) and
+    rescale.
     """
 
     def round_(Yc, shift):
@@ -81,13 +78,13 @@ def cholesky_qr2(Y: jnp.ndarray) -> jnp.ndarray:
             r, Yc, left_side=False, lower=False
         )
 
-    return _vpu_colnorm_rescale(round_(round_(Y, True), False))[0]
+    return _colnorm_rescale(round_(round_(Y, True), False))[0]
 
 
-def _vpu_colnorm_rescale(Q: jnp.ndarray):
+def _colnorm_rescale(Q: jnp.ndarray):
     """(Q with exactly-unit f32 column norms, the norms it had).
 
-    VPU elementwise square + reduce — immune to the MXU self-Gram's
+    Elementwise square + reduce — immune to a decomposed self-Gram's
     systematic ~2^-16 diagonal bias (see :func:`cholesky_qr2`)."""
 
     nrm = jnp.sqrt(jnp.maximum(jnp.sum(Q * Q, axis=0), 1e-30))
@@ -172,7 +169,7 @@ def randomized_svd(
 
     if p >= _CHOLQR_MIN_ROWS and Bt.dtype == jnp.float32:
         # avoid factorizing an [l, p] matrix directly (Householder QR/SVD
-        # at these shapes are compile-time hogs on TPU): Bt = Qb R with a
+        # at these shapes are compile-time hogs): Bt = Qb R with a
         # Gram-based QR, then SVD the tiny [l, l] factor.
         # B = Bt.T = R^T Qb^T;  svd(R^T) = (ub, s, vr^T)  =>
         # svd(B) = (ub, s, vr^T Qb^T)
@@ -220,10 +217,10 @@ def _cholesky_qr2_with_r(Y: jnp.ndarray):
 
     q1, r1 = round_(Y, True)
     q2, r2 = round_(q1, False)
-    # fold the VPU-measured column norms into R so Q R == Y still holds
+    # fold the elementwise-measured column norms into R so Q R == Y still holds
     # and the sigma path downstream sees unbiased norms (see
     # cholesky_qr2's column-norm-rescue note)
-    qs, nrm = _vpu_colnorm_rescale(q2)
+    qs, nrm = _colnorm_rescale(q2)
     return qs, nrm[:, None] * jnp.dot(r2, r1, precision=MATMUL_PRECISION)
 
 

@@ -6,8 +6,8 @@ This module closes the evaluation gap for the KMeans / t-SNE / UMAP
 stack:
 
 - ``silhouette_score``: mean silhouette coefficient, computed exactly on
-  device. TPU-first formulation — the per-point per-cluster distance
-  sums are ONE MXU product per row block: ``S_block = D_block @ H``
+  device. Accelerator-first formulation — the per-point per-cluster distance
+  sums are ONE matmul per row block: ``S_block = D_block @ H``
   where ``D_block`` is a [block, n] Euclidean-distance tile (itself the
   ``|x|^2 + |y|^2 - 2 x y^T`` cross-term matmul) and ``H`` the [n, k]
   one-hot label matrix. Total cost 2 n^2 d + 2 n^2 k FLOPs, no [n, n]
@@ -60,12 +60,12 @@ def _silhouette_device(X, labels, counts, *, k: int, block: int):
 
     def body(carry, blk):
         xb, x2b, lb = blk
-        # [block, n] Euclidean distances: cross term on the MXU
+        # [block, n] Euclidean distances: cross term as a matmul
         d2 = jnp.maximum(
             x2b[:, None] + x2[None, :] - 2.0 * (xb @ X.T), 0.0
         )
         D = jnp.sqrt(d2)
-        S = D @ H  # [block, k] per-cluster distance sums — MXU
+        S = D @ H  # [block, k] per-cluster distance sums — a matmul
         own = jnp.take_along_axis(S, lb[:, None], axis=1)[:, 0]
         own_count = counts[lb]
         a = own / jnp.maximum(own_count - 1.0, 1.0)
@@ -334,7 +334,7 @@ def embedding_density(
     """Per-cell Gaussian KDE in a low-dim embedding (scanpy
     ``tl.embedding_density``), computed within each group and min-max
     scaled to [0, 1] per group. The kernel sums are the same blocked
-    [block, n] MXU distance tiles as the silhouette. Scott's-rule
+    [block, n] matmul distance tiles as the silhouette. Scott's-rule
     bandwidth per group."""
 
     Y = np.asarray(Y, np.float32)

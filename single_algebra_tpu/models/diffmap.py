@@ -1,10 +1,10 @@
-"""Diffusion maps + diffusion pseudotime on the TPU operator seam.
+"""Diffusion maps + diffusion pseudotime on the operator seam.
 
 scanpy's ``tl.diffmap`` / ``tl.dpt`` surface (Coifman et al. 2005;
 Haghverdi et al. 2016): eigenvectors of the density-normalized
 transition operator built from the fuzzy kNN connectivities.
 
-TPU formulation: the anisotropic (alpha=1) kernel ``K = W / (q q^T)``
+Device formulation: the anisotropic (alpha=1) kernel ``K = W / (q q^T)``
 is an O(nnz) host rescale of the graph's stored values; the symmetric
 transition operator ``T = Z^{-1/2} K Z^{-1/2}`` never materializes —
 its top eigenpairs come from :func:`block_lanczos_svd` on the PSD shift

@@ -2,8 +2,8 @@
 
 The CPU ecosystem runs ForceAtlas2 (Jacomy et al. 2014) through Gephi/fa2
 with Barnes-Hut repulsion — a pointer tree XLA cannot express. Like the
-large-n t-SNE mode (``models/tsne.py``), the TPU formulation computes the
-n-body repulsion EXACTLY in [block, n] MXU/VPU tiles (O(n^2) flops,
+large-n t-SNE mode (``models/tsne.py``), the device formulation computes the
+n-body repulsion EXACTLY in [block, n] matmul/elementwise tiles (O(n^2) flops,
 O(block * n) memory — no tree-approximation error), the edge attraction as
 a flat edge list + sorted ``segment_sum`` (degree-robust under graph
 hubness), and the whole optimization — including ForceAtlas2's adaptive
@@ -122,7 +122,7 @@ def _forces(y, mass, e_src, e_dst, e_val, *, scaling, gravity,
                 # HIGHEST is load-bearing: the default bf16 passes leave
                 # O(1e-3 * |y|^2) error in d2, and 1/max(d2, eps) turns
                 # that into ~1e9x repulsion spikes on whole tiles of
-                # nearby points (observed as radius -> NaN on silicon;
+                # nearby points (observed as radius -> NaN;
                 # the t-SNE tile survives bf16 only because its kernel
                 # 1/(1+d2) is bounded)
                 precision=MATMUL_PRECISION,

@@ -1,17 +1,17 @@
-"""KMeans clustering on the MXU.
+"""KMeans clustering as matmuls.
 
 Completes the reference ecosystem's pipeline: the reference ships
 similarity/distance kernels "over PCA embeddings for clustering"
 (BASELINE.json graded config #5; orphan ``/root/reference/src/similarity/
 mod.rs``) but no clusterer — downstream SingleRust code clusters
-externally. This module is the TPU-native clusterer those distances feed.
+externally. This module is the device clusterer those distances feed.
 
-TPU-first formulation — every O(n) pass is a matmul:
+Accelerator-first formulation — every O(n) pass is a matmul:
 
 - assignment: ``d2 = |x|^2 + |c|^2 - 2 X C^T`` with the cross term as one
-  [n, d] x [d, k] MXU product; argmin over the k lane axis.
+  [n, d] x [d, k] matmul; argmin over the k axis.
 - update: ``C = H^T X / counts`` where ``H`` is the one-hot assignment
-  matrix — a second MXU product (for sparse X it rides the padded-ELL
+  matrix — a second matmul (for sparse X it rides the padded-ELL
   SpMM, so KMeans also runs directly on expression matrices without
   densifying).
 - k-means++ init: the D^2-sampling recurrence as a ``fori_loop`` of
@@ -99,7 +99,7 @@ def _d_of(X) -> int:
 
 
 def _pairwise_d2(x2: jnp.ndarray, X, C: jnp.ndarray) -> jnp.ndarray:
-    """Squared distances [n, k]; cross term on the MXU."""
+    """Squared distances [n, k]; cross term as a matmul."""
 
     c2 = jnp.sum(C * C, axis=1)
     xc = _xdot(X, C.T)
@@ -202,7 +202,7 @@ def _assign(X, x2, C, *, k: int):
 def _minibatch_step(X, x2, C, counts, *, k: int):
     """One MiniBatchKMeans update (Sculley 2010 / sklearn semantics):
     assign the batch, then move each center toward its batch mean with a
-    per-center learning rate 1/total_count. All-MXU: assignment is the
+    per-center learning rate 1/total_count. All matmuls: assignment is the
     d2 cross-term matmul, the batch sums are one X^T H product."""
 
     d2 = _pairwise_d2(x2, X, C)

@@ -1,7 +1,7 @@
 """Latent semantic indexing — the scATAC dimensionality reduction.
 
 TF-IDF (``preprocess.tfidf``) followed by a truncated UNcentered SVD over
-the engine-operator seam — the same MXU-backed randomized SVD the PCA
+the engine-operator seam — the same matmul-backed randomized SVD the PCA
 surfaces use (``linalg/svd.py``), with centering simply not requested.
 Mirrors Signac ``RunSVD`` / muon ``atac.tl.lsi``; the reference's nearest
 analog is the Lanczos SparsePCA path, which is likewise a truncated SVD of

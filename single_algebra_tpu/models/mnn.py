@@ -3,7 +3,7 @@
 The MNN alternative to :func:`harmony` (embedding-space) and
 ``preprocess.combat`` (expression-space): batches are corrected
 sequentially onto a growing reference. For each new batch, MNN pairs
-come from two blocked cross-set MXU kNN passes
+come from two blocked cross-set matmul kNN passes
 (``neighbors.cross_knn``); each cell's correction is the
 Gaussian-kernel weighted average of its batch's pair vectors — one
 dense kernel matmul. Works on any dense per-cell representation

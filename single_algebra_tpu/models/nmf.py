@@ -2,9 +2,9 @@
 
 X ~= W H with W [n, k] >= 0 (cell usages) and H [k, p] >= 0 (gene
 programs), Frobenius loss, solved with multiplicative updates (Lee &
-Seung 2000; sklearn ``NMF(solver='mu')`` semantics). TPU-first shape of
+Seung 2000; sklearn ``NMF(solver='mu')`` semantics). Accelerator-first shape of
 the solver: every update is two SpMM products against the sparse X
-(``X @ H^T`` / ``X^T @ W`` on the padded-ELL MXU kernels) plus tiny
+(``X @ H^T`` / ``X^T @ W`` on the padded-ELL matmul kernels) plus tiny
 [k, k] Gram matmuls — X is never densified, and the whole iteration
 (including the loss-based stopping rule) runs inside one jitted
 ``lax.while_loop``. The loss tracks without a dense residual via
@@ -65,7 +65,7 @@ def _mu_loop(op, W0, H0, x_sq, tol, max_iter: int):
 
     # prefer the compensated products where the operator has them (the
     # densified-bf16 engine): MU tolerates small product error, but the
-    # precise form costs only 2-4 MXU passes and keeps the sklearn loss
+    # precise form costs only 2-4 matmul passes and keeps the sklearn loss
     # parity tight
     op_mv = getattr(op, "mv_precise", op.mv)
     op_rmv = getattr(op, "rmv_precise", op.rmv)
@@ -241,16 +241,17 @@ class NMF:
             from ..linalg.operators import DensifiedOperator
             from .pca import _needs_lo
 
+            from .. import platform
+
             if (
-                jax.default_backend() == "tpu"
+                platform.engine_ladder()
                 and m.dtype == jnp.float32
                 and DensifiedOperator.fits(m.shape, needs_lo=_needs_lo(m))
             ):
                 # MU runs ~4 wide products per iteration; the gather
                 # SpMM's [rows, W, k] budget makes those sequential
-                # micro-blocks (measured 25 s / 22 iters at 50k x 5k),
-                # while the bf16 densified payload runs them as single
-                # MXU passes
+                # micro-blocks, while the bf16 densified payload runs
+                # them as single matmuls
                 op = DensifiedOperator.from_matrix(m)
             else:
                 mr = m._layout_for("row")

@@ -1,11 +1,11 @@
-"""Spectral clustering on the TPU operator seam.
+"""Spectral clustering on the operator seam.
 
 Normalized-cut spectral clustering (Ng-Jordan-Weiss 2001 / Shi-Malik
 2000), composed entirely from this framework's primitives so every O(n)
-or O(nnz) pass rides the MXU:
+or O(nnz) pass runs as matmuls:
 
 1. exact kNN graph over the input rows (``neighbors.knn`` — blocked
-   pairwise-distance MXU tiles),
+   pairwise-distance matmul tiles),
 2. symmetric connectivity affinity ``W = (A + A^T) / 2`` held as a
    :class:`SparseMatrix` (padded-ELL device layout),
 3. the top-k eigenvectors of the normalized affinity
@@ -19,7 +19,7 @@ or O(nnz) pass rides the MXU:
    multiplets when the kNN graph has several components), where
    randomized subspace iteration needs thousands of power passes but a
    blocked Krylov space resolves the multiplet in tens of steps,
-4. row-normalized embedding rows clustered by :class:`KMeans` (MXU
+4. row-normalized embedding rows clustered by :class:`KMeans` (matmul
    Lloyd).
 
 The reference ecosystem clusters externally (its similarity kernels are
@@ -27,7 +27,7 @@ The reference ecosystem clusters externally (its similarity kernels are
 covers the convex case and this model the graph/nonconvex case — the
 role Leiden/Louvain play in scanpy pipelines, formulated as dense linear
 algebra instead of sequential vertex sweeps (which would be hostile to
-the TPU's execution model).
+an accelerator's execution model).
 """
 
 from __future__ import annotations

@@ -4,20 +4,20 @@ The reference wraps the external ``bhtsne`` crate's Barnes-Hut tree code
 behind ``TSNEConfig`` / ``run_f32`` / ``run_f64``
 (``src/dimred/tsne/mod.rs:7-66``, marked WIP at ``tsne/mod.rs:1-2``).
 Barnes-Hut trees are a CPU pointer structure with data-dependent control
-flow — the opposite of what XLA wants. Two TPU-idiomatic modes instead:
+flow — the opposite of what XLA wants. Two accelerator-idiomatic modes instead:
 
 - ``exact`` (n up to ~16k): the n x n distance/affinity matrices are plain
-  MXU/VPU work, every epoch is two matmuls plus elementwise math, and the
+  matmul/elementwise work, every epoch is two matmuls plus elementwise math, and the
   whole optimization runs inside ``lax.fori_loop`` with zero host
   round-trips. Corresponds to theta=0.
 - ``knn`` (large n — the Barnes-Hut regime): the input-space affinity P is
   restricted to each point's k nearest neighbors (k = 3 * perplexity, the
   standard Barnes-Hut sparsification) and symmetrized into a padded ELL
   payload; the attraction term is a [n, w, dim] gather-free-form pass, and
-  the repulsion term is computed EXACTLY in [block, n] MXU/VPU tiles
+  the repulsion term is computed EXACTLY in [block, n] matmul/elementwise tiles
   (O(n^2) flops, O(block * n) memory). Unlike Barnes-Hut, the repulsive
   forces carry no tree-approximation error — the O(n^2) pass that a CPU
-  must approximate away is exactly the dense arithmetic a TPU is built
+  must approximate away is exactly the dense arithmetic an accelerator is built
   for. ``theta`` remains accepted for config parity and does not change
   the computation.
 
@@ -48,7 +48,7 @@ class TSNEConfig:
     epochs: int = 1000
     theta: float = 0.5  # parity field; neither mode approximates
 
-    # TPU-side knobs (defaults follow the standard reference implementation)
+    # device-side knobs (defaults follow the standard reference implementation)
     learning_rate: float = 200.0
     early_exaggeration: float = 12.0
     exaggeration_epochs: int = 250
@@ -394,7 +394,7 @@ def _knn_epoch_chunk_mesh(
 ):
     """Mesh-sharded epochs [i0, i1): y replicated (re-gathered each
     epoch), velocity/gains row-sharded, repulsion tiles and edge
-    attraction local to each device, Z and nothing else crossing ICI."""
+    attraction local to each device, Z and nothing else crossing devices."""
 
     from jax.sharding import PartitionSpec as P
 
@@ -470,9 +470,8 @@ def _knn_epoch_chunk(state, e_src, e_dst, e_val, i0, i1, config: TSNEConfig):
     every chunk and every total epoch count; the host loop in
     :func:`_run_knn` carries ``state`` across chunks. Chunking (rather
     than one fori_loop over all epochs) bounds single-execution device
-    time: at n ~ 10^5 one epoch's exact repulsion is ~0.1 s, and a
-    500-epoch single execution both outlives remote-execution watchdogs
-    and recompiles whenever ``epochs`` changes."""
+    time: a 500-epoch single execution at n ~ 10^5 runs for a long time
+    in one launch and recompiles whenever ``epochs`` changes."""
 
     n = state[0].shape[0]
     block = min(config.repulsion_block, max(-(-n // 8) // 128 * 128, 128))

@@ -3,7 +3,7 @@
 // Role-equivalent of the compiled storage layer the reference gets from
 // nalgebra-sparse (CSR/CSC construction and transposition, reference
 // src/sparse/csr.rs:27-29): the O(nnz) relayout passes that sit between
-// disk/scipy CSR arrays and the TPU's padded-ELL / tiled-ELL device
+// disk/scipy CSR arrays and the padded-ELL / tiled-ELL device
 // layouts. These are bandwidth-bound pointer loops - the one part of the
 // pipeline where native code beats numpy (no boolean-mask temporaries, one
 // pass, cache-friendly write patterns).
@@ -56,7 +56,7 @@ void csr_transpose_f32(const int64_t* indptr, const int32_t* indices,
   }
 }
 
-// CSR -> column-tiled padded ELL (the Pallas SpMM kernel layout),
+// CSR -> column-tiled padded ELL (the layout of ops/tiled.py),
 // TRANSPOSED orientation: outputs are [n_payload_rows, rows_padded]
 // with n_payload_rows = ntiles * wt. tdata_t/tlocal_t must be
 // zero-initialized by the caller.

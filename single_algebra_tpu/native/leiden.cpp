@@ -7,7 +7,7 @@
 // 2019). The reference ships no clustering; its downstream consumers run
 // leidenalg on CPU — this is the native-runtime equivalent, a pointer-
 // chasing irregular-graph workload that belongs on the host next to the
-// TPU doing the kNN/embedding math.
+// device doing the kNN/embedding math.
 //
 // Quality: Q = sum_c [ e_c / m2 - gamma * (tot_c / m2)^2 ], where e_c is
 // the double-counted intra-community weight, tot_c the community

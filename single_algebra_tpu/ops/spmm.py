@@ -10,12 +10,9 @@ statistics, and batch group-by statistics all reduce to ``A^T @ m`` for small
 dense ``m`` (ones / mask / one-hot codes), so one optimized kernel serves the
 whole library.
 
-Two implementations:
-
-* :func:`ell_spmm` — pure-XLA row-blocked gather + contraction. Works on any
-  backend (CPU tests, interpret mode) and is the correctness reference.
-* a Pallas TPU kernel (``ops/pallas/spmm_kernel.py``) that the dispatcher
-  prefers on TPU for large operands.
+:func:`ell_spmm` is a pure-XLA row-blocked gather + contraction. The
+column-tiled layout's densify-then-contract products live in
+``ops/tiled.py``.
 """
 
 from __future__ import annotations
@@ -105,8 +102,8 @@ def ell_spmm(
 ) -> jnp.ndarray:
     """SpMM over the plain padded-ELL layout (XLA gather path).
 
-    The Pallas fast path lives behind ``TiledSparseOperator`` (it needs the
-    column-tiled layout); this entry point serves the stats/batch ops and
-    the sharded slabs where the gather path is adequate."""
+    The tiled densify-then-contract path lives behind
+    ``TiledSparseOperator`` (it needs the column-tiled layout); this entry
+    point serves the stats/batch ops and the sharded slabs."""
 
     return ell_spmm_xla(ell_data, ell_ids, B)

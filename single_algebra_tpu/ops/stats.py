@@ -1,11 +1,11 @@
 """Statistic kernels over the padded-ELL layout (pure jitted XLA).
 
-TPU-native rebuild of the reference's L1 sparse-statistics layer
+JAX rebuild of the reference's L1 sparse-statistics layer
 (``src/sparse/mod.rs`` traits, implemented for CSR in ``src/sparse/csr.rs``
 and CSC in ``src/sparse/csc.rs``). The reference parallelizes ragged CSR
 walks with Rayon (per-chunk local accumulators + tree reduce,
 ``csr.rs:56-75``); here every statistic over the *major* axis is a masked
-width-axis reduction over the ELL grid — a single fused VPU pass — and
+width-axis reduction over the ELL grid — a single fused elementwise pass — and
 statistics over the *minor* axis are the same reduction applied to the
 transposed layout (see ``SparseMatrix``).
 

@@ -1,7 +1,7 @@
 """Row-sharded Gram-PCA engine: exact two-pass PCA over a device mesh.
 
 The single-chip :class:`~single_algebra_tpu.linalg.gram.GramPCAEngine` does
-exact PCA in two data passes (slab densify -> ``G += D D^T`` on the MXU,
+exact PCA in two data passes (slab densify -> ``G += D D^T`` on the tensor cores,
 p-space solve, one projection pass). Sharding it follows the same recipe as
 the other engines: each device holds a contiguous row block's column-tiled
 payload; the Gram accumulation is embarrassingly local with a single
@@ -14,8 +14,8 @@ p-width statistics are the only cross-slab coupling).
 
 **Row bucketing** (mirrors the single-chip engine): a uniform payload pads
 every (row, tile) group to the width of the globally heaviest row, so one
-dense row multiplies the one-hot densify work of EVERY row — measured
-2-5x padded-work inflation on power-law scRNA profiles. Here each
+dense row multiplies the densify work of EVERY row (2-5x padded work on
+power-law scRNA profiles). Here each
 device's rows are sorted into the GLOBAL width classes (8, 16, 32, ...
 slots/tile) and every class gets its own ``[ndev, nt*c, Rc]`` stacked
 payload (Rc = max per-device class population, slab-rounded) — shapes stay
@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops.tiled import tiled_ell_densify_t
 from ..sparse import convert as _cv
 from ..sparse.matrix import SparseMatrix
 
@@ -46,26 +47,20 @@ def _local_gram(td, tl, *, wt, nt, ct, slab, exact, i8=False):
     """G contribution of one device's payload [nt*wt, Rs] (sum over its
     Rs/slab sub-slabs)."""
 
-    from ..ops.pallas.spmm_kernel import tiled_ell_densify_t
-
-    interpret = jax.default_backend() != "tpu"
     rs = td.shape[1]
     pp = nt * ct
-    block_rows = min(1024, slab)
 
     def densify(i, out_dtype):
         tds = jax.lax.dynamic_slice(td, (0, i * slab), (td.shape[0], slab))
         tls = jax.lax.dynamic_slice(tl, (0, i * slab), (tl.shape[0], slab))
         return tiled_ell_densify_t(
-            tds, tls, wt=wt, ntiles=nt, col_tile=ct,
-            block_rows=block_rows, out_dtype=out_dtype,
-            interpret=interpret,
+            tds, tls, wt=wt, ntiles=nt, col_tile=ct, out_dtype=out_dtype,
         )
 
     def body(i, G):
-        # int8 tier: exact int8 x int8 -> int32 slab products at 2x the
-        # bf16 MXU peak (slab <= 8192 terms x 127^2 < 2^31), int32
-        # partial folded into the f32 carry — see linalg/gram.py
+        # int8 tier: exact int8 x int8 -> int32 slab products (slab <=
+        # 8192 terms x 127^2 < 2^31), int32 partial folded into the f32
+        # carry — see linalg/gram.py
         if i8 and exact and slab * 127 ** 2 < 2 ** 31:
             D = densify(i, jnp.int8)
             return G + jax.lax.dot_general(
@@ -85,8 +80,10 @@ def _local_gram(td, tl, *, wt, nt, ct, slab, exact, i8=False):
             precision=jax.lax.Precision.HIGHEST,
         )
 
-    G0 = jnp.zeros((pp, pp), jnp.float32)
-    return jax.lax.fori_loop(0, rs // slab, body, G0)
+    # the carry starts from slab 0 (not zeros), so it has the payload's
+    # sharding type inside the shard_map body
+    G0 = body(0, jnp.zeros((), jnp.float32))
+    return jax.lax.fori_loop(1, rs // slab, body, G0)
 
 
 def _local_project(td, tl, Vp, *, wt, nt, ct, slab):
@@ -94,30 +91,23 @@ def _local_project(td, tl, Vp, *, wt, nt, ct, slab):
     (bucketed row order; centering applied by the caller after the
     natural-order gather)."""
 
-    from ..ops.pallas.spmm_kernel import tiled_ell_densify_t
-
-    interpret = jax.default_backend() != "tpu"
     rs = td.shape[1]
     k = Vp.shape[1]
-    block_rows = min(1024, slab)
 
-    def body(i, T):
+    def block(i):
         tds = jax.lax.dynamic_slice(td, (0, i * slab), (td.shape[0], slab))
         tls = jax.lax.dynamic_slice(tl, (0, i * slab), (tl.shape[0], slab))
         D = tiled_ell_densify_t(
-            tds, tls, wt=wt, ntiles=nt, col_tile=ct,
-            block_rows=block_rows, out_dtype=jnp.float32,
-            interpret=interpret,
+            tds, tls, wt=wt, ntiles=nt, col_tile=ct, out_dtype=jnp.float32,
         )
-        Ts = jax.lax.dot_general(
+        return jax.lax.dot_general(
             D, Vp, dimension_numbers=(((0,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST,
-        )
-        return jax.lax.dynamic_update_slice(T, Ts, (i * slab, 0))
+        )  # [slab, k]
 
-    T0 = jnp.zeros((rs, k), jnp.float32)
-    return jax.lax.fori_loop(0, rs // slab, body, T0)
+    # stacked slab outputs rather than a zero-initialised loop carry
+    return jax.lax.map(block, jnp.arange(rs // slab)).reshape(rs, k)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -131,7 +121,7 @@ class ShardedGram:
     bucketed position in the concatenated per-class projection output
     (padding slots point at the appended zero row). ``bwidths`` is the
     static per-class ``(wc, Rc, slab_c)`` list; ``meta = (nt, ct, exact,
-    i8)`` (``i8``: integer values in [-127, 127] — the int8 MXU Gram
+    i8)`` (``i8``: integer values in [-127, 127] — the int8 Gram
     tier, see ``linalg/gram.py``).
     """
 
@@ -162,19 +152,13 @@ class ShardedGram:
         ndev = mesh.shape[axis_name]
         rs = -(-n // ndev)  # natural rows per device (contiguous blocks)
 
-        if slab is not None and not (slab <= 1024 or slab % 1024 == 0):
-            # the densify kernel needs slab % block_rows == 0 with
-            # block_rows = min(1024, slab) — catch it at build time
-            # instead of a bare assert deep in a shard_map trace
-            raise ValueError(
-                f"slab={slab} must be <= 1024 or a multiple of 1024"
-            )
+        if slab is not None and slab < 1:
+            raise ValueError(f"slab={slab} must be a positive row count")
 
         def _slab_for_rows(cap: int) -> int:
             """Sub-slab granularity for a row population: full 8192 at
             scale, small otherwise so a near-empty width class doesn't pay
-            a whole slab of padding. The densify kernel needs
-            slab % block_rows == 0 with block_rows = min(1024, slab)."""
+            a whole slab of padding."""
 
             if slab is not None:
                 return slab
@@ -279,8 +263,8 @@ class ShardedGram:
 
     @property
     def unbucketed_payload_bytes(self) -> int:
-        """What a single global-width payload would cost (the pre-r3
-        layout: every device slab padded to the max class width)."""
+        """What a single global-width payload would cost (every device
+        slab padded to the max class width)."""
 
         ndev = self.bdata[0].shape[0]
         nt = self.meta[0]
@@ -317,7 +301,6 @@ class ShardedGram:
             mesh=self.mesh,
             in_specs=(spec, spec),
             out_specs=P(),
-            check_vma=False,  # pallas_call outputs carry no vma metadata
         )(self.bdata, self.blocal)
 
     def gram_cached(self) -> jnp.ndarray:
@@ -357,7 +340,6 @@ class ShardedGram:
             mesh=self.mesh,
             in_specs=(spec, spec, P(ax, None), P(), P()),
             out_specs=P(ax, None),
-            check_vma=False,  # pallas_call outputs carry no vma metadata
         )(self.bdata, self.blocal, self.pos_local, Vp, corr)
         return T[: self.shape[0]]
 

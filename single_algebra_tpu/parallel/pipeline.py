@@ -82,7 +82,7 @@ def _map_payloads(op: ShardedSpMM, fn):
         # re-mask the transposed padding slots (tr_nnz is resident, the
         # mask fuses into the map for free): a caller-supplied fn that
         # violates the fn(0) -> 0 contract would otherwise silently
-        # corrupt padded gene slots feeding every psum (advisor r4)
+        # corrupt padded gene slots feeding every psum
         rank = jax.lax.broadcasted_iota(jnp.int32, td[0].shape, 1)
         td2 = jnp.where(rank < tn[0][:, None], td2, 0)
         return rd2, td2[None]
@@ -109,8 +109,8 @@ def mesh_map_stored(op: ShardedSpMM, fn) -> ShardedSpMM:
     re-masked via ``tr_nnz`` regardless, for free inside the fused map;
     the row-major layout has no per-row nnz on device, so set
     ``SINGLE_ALGEBRA_TPU_DEBUG=1`` to probe the contract with a zero
-    input instead of silently corrupting padded rows (advisor r4; the
-    probe is opt-in because ``fn`` may close over sharded device arrays,
+    input instead of silently corrupting padded rows (the probe is
+    opt-in because ``fn`` may close over sharded device arrays,
     making an always-on probe cost accelerator round trips per call).
     """
 

@@ -3,7 +3,7 @@
 scanpy's ``pp.scale`` / ``pp.regress_out`` surface over this library's
 device kernels. Both are one-jitted-graph operations: column moments
 ride the fused ELL reductions, densification is a single device
-scatter, and ``regress_out``'s projector is two MXU matmuls plus a
+scatter, and ``regress_out``'s projector is two matmuls plus a
 q x q solve (q = covariate count, tiny). The reference ships the
 normalize/log1p half of preprocessing (``src/utils/mod.rs:6-39``);
 these are the steps its downstream pipelines run next.
@@ -318,9 +318,9 @@ def _residual_graph(dense, C):
     """dense [n, p] minus its projection onto span(C) ([n, q], q tiny)."""
 
     G = C.T @ C  # [q, q]
-    CtX = C.T @ dense  # [q, p] MXU
+    CtX = C.T @ dense  # [q, p] matmul
     B = jnp.linalg.solve(G, CtX)
-    return dense - C @ B  # [n, p] MXU
+    return dense - C @ B  # [n, p] matmul
 
 
 def regress_out(X, covariates, *, add_intercept: bool = True):
@@ -329,7 +329,7 @@ def regress_out(X, covariates, *, add_intercept: bool = True):
     effects before scaling).
 
     ``covariates`` is [n] or [n, q] (host or device). All genes share
-    one projector: B = (C^T C)^{-1} C^T X via two MXU products and a
+    one projector: B = (C^T C)^{-1} C^T X via two matmuls and a
     q x q solve. Returns a dense device array [n, p].
     """
 

@@ -7,10 +7,10 @@ is first-class, and each measure has two entry points:
 
 * ``calculate(a, b)`` — single-pair parity with the reference (same guards:
   zero-norm -> 0.0, union == 0 -> 0.0, etc.).
-* ``pairwise(X, Y=None)`` — the TPU-native form: batched [n, m] similarity
-  over row-embedding matrices. Cosine/Pearson ride the MXU as normalized
+* ``pairwise(X, Y=None)`` — the accelerator form: batched [n, m] similarity
+  over row-embedding matrices. Cosine/Pearson run as matmuls over normalized
   Gram matrices; Euclidean uses the ||x||^2 + ||y||^2 - 2<x,y> expansion;
-  Manhattan/Jaccard are blocked VPU reductions (no inner-product shortcut
+  Manhattan/Jaccard are blocked elementwise reductions (no inner-product shortcut
   exists for L1/threshold counts).
 
 Reference semantics preserved exactly, including the quirky ones:

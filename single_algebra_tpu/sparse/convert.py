@@ -1,9 +1,9 @@
 """Host-side sparse format conversion: CSR/CSC/COO -> blocked padded ELL.
 
-This is the TPU-native replacement for the reference's storage layer
+This is the device-side replacement for the reference's storage layer
 (nalgebra-sparse ``CsrMatrix``/``CscMatrix``/``CooMatrix``, surfaced at
 reference ``src/sparse/csr.rs:27-29``). Where the reference keeps ragged
-CSR arrays and walks them with Rayon threads, the TPU rebuild re-lays the
+CSR arrays and walks them with Rayon threads, this rebuild re-lays the
 matrix out as **padded ELL**: a dense ``[rows_padded, width_padded]`` grid of
 (value, minor-index) pairs, one row per major-axis line, padded with zeros.
 Static shapes mean XLA can tile the arrays into (8, 128) vregs and every
@@ -34,8 +34,8 @@ def round_up(x: int, m: int) -> int:
 def pad_width(max_nnz: int) -> int:
     """Pad the ELL width.
 
-    Small widths round to the sublane multiple (8); widths past one lane
-    round to a lane multiple (128) so vregs tile cleanly.
+    Small widths round to a multiple of 8; widths past 128 round to a
+    multiple of 128, so few distinct widths (and compiled shapes) occur.
     """
 
     if max_nnz == 0:
@@ -168,7 +168,7 @@ def coo_to_csr_numpy(
 def slab_row_ranges(n_rows: int, n_slabs: int) -> list[tuple[int, int]]:
     """Split rows into ``n_slabs`` contiguous slabs of near-equal padded size.
 
-    Each slab is a multiple of the sublane (8) except possibly the last,
+    Each slab is a multiple of 8 rows except possibly the last,
     so device shards tile cleanly.
     """
 
@@ -191,7 +191,7 @@ def csr_to_tiled_ell_numpy(
     col_tile: int = 256,
     rows_padded_to: int = 256,
 ) -> tuple[np.ndarray, np.ndarray, int, int]:
-    """Column-tiled padded ELL: the Pallas SpMM kernel's layout.
+    """Column-tiled padded ELL: the layout of ``ops/tiled.py``.
 
     Entries are grouped per (row, column-tile); each group is padded to the
     global per-tile width ``wt``. Returns ``(tdata [R, ntiles*wt],
@@ -199,9 +199,8 @@ def csr_to_tiled_ell_numpy(
     within-tile column offset (0..col_tile-1) and padding slots carry
     ``v=0, lid=0`` (they accumulate exact zeros into dense-tile column 0).
 
-    The kernel densifies each [block_rows, col_tile] tile from this layout
-    with one-hot selects and contracts it against the dense operand on the
-    MXU — the scatter/gather-free TPU formulation of CSR SpMM.
+    The products densify row blocks from this layout (one scatter) and
+    contract them against the dense operand as matmuls.
     """
 
     indptr = np.asarray(indptr, dtype=np.int64)

@@ -1,6 +1,6 @@
 """Core enums and dtype policy for single-algebra-tpu.
 
-TPU-native rebuild of the type/trait foundation of SingleRust/single-algebra:
+JAX rebuild of the type/trait foundation of SingleRust/single-algebra:
 
 * ``Direction`` mirrors ``single_utilities::types::Direction`` (reference usage:
   ``src/sparse/csr.rs:17``, ``src/utils/mod.rs:4``).
@@ -10,9 +10,8 @@ TPU-native rebuild of the type/trait foundation of SingleRust/single-algebra:
   (``Lanczos`` default, ``Random {n_oversamples, n_power_iterations,
   normalizer}``).
 * The dtype policy replaces the reference's ``SvdFloat``/``FloatOpsTS``
-  generic bounds (``src/dimred/pca/mod.rs:42``): f32 is native on TPU;
-  f64 requires ``jax.config.update("jax_enable_x64", True)`` and is
-  emulated by XLA:TPU (use it for parity tests, not production).
+  generic bounds (``src/dimred/pca/mod.rs:42``): f32 is the working
+  dtype; f64 requires ``jax.config.update("jax_enable_x64", True)``.
 """
 
 from __future__ import annotations
@@ -85,8 +84,9 @@ class SVDMethod:
 # dtype policy
 # ---------------------------------------------------------------------------
 
-#: All dots in the library run at this precision so f32 results on TPU use
-#: the bf16x3 / native-f32 MXU path instead of fast-but-lossy bf16.
+#: All dots in the library run at this precision so f32 products run in
+#: full f32 instead of a fast-but-lossy reduced-precision mode (bf16 or
+#: TF32).
 MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 _SUPPORTED_FLOATS = (np.float32, np.float64)
@@ -95,8 +95,8 @@ _SUPPORTED_FLOATS = (np.float32, np.float64)
 def canonical_float_dtype(dtype) -> np.dtype:
     """Validate and canonicalize a floating dtype (f32/f64 policy).
 
-    The reference is generic over ``f32``/``f64`` (README.md:13). On TPU f32
-    is native; f64 requires x64 mode.
+    The reference is generic over ``f32``/``f64`` (README.md:13). f32 is the
+    working dtype; f64 requires x64 mode.
     """
 
     dt = np.dtype(dtype)

@@ -1,7 +1,7 @@
 """Stage tracing: named profiler annotations + wall-clock stage timings.
 
 The reference's observability is verbose printlns plus ``Instant`` stage
-timings (``sparse_masked/mod.rs:257,288``; SURVEY.md §5). The TPU-native
+timings (``sparse_masked/mod.rs:257,288``; SURVEY.md §5). The
 upgrade is ``jax.profiler`` trace annotations — stages show up named in
 TensorBoard/XProf captures — plus the same wall-clock dict the printlns
 provided.

@@ -1,11 +1,13 @@
-"""'auto' engine selection: dense -> gram -> tiled -> sparse by HBM budget.
+"""'auto' engine selection: dense -> gram -> tiled -> sparse by device-memory budget.
 
-The selector (models/pca.py::make_engine_operator) only engages on a real
-TPU backend, so these tests drive its *inputs* — the fits()/payload
-planners — with mocked budgets, plus the selector's cache semantics.
+The selector (models/pca.py::make_engine_operator) only engages on the GPU
+(``platform.engine_ladder()``), so these tests drive its *inputs* — the
+fits()/payload planners — with mocked budgets, plus the selector's cache
+semantics and the platform decision itself.
 """
 
 import numpy as np
+import pytest
 import scipy.sparse as sp
 
 from single_algebra_tpu import SparseMatrix
@@ -70,21 +72,15 @@ def test_gram_rejects_very_wide_matrices():
 
 def test_auto_resolves_gram_class_to_gram(monkeypatch):
     """'auto' on a gram-class matrix (dense doesn't fit, Gram does)
-    resolves to the exact Gram engine on EVERY fit, including the first.
-
-    A round-4 first-fit promotion (run the first randomized fit on the
-    tiled sketch engine) was measured at 400k x 30k and removed: EV rel
-    err 1.2e-3 vs the Gram's 2.1e-6 at identical solver parameters, a
-    ~500 s tiled-fit-graph compile, and a transient tiled+Gram HBM
-    coexistence OOM (see make_engine_operator docs)."""
-
-    import jax
+    resolves to the exact Gram engine on EVERY fit, including the first
+    (see make_engine_operator docs)."""
 
     import single_algebra_tpu.models.pca as pca_mod
+    from single_algebra_tpu import platform
 
     m = _m(n=500, p=200)
     m._operator_cache = {}
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(platform, "engine_ladder", lambda: True)
     monkeypatch.setattr(
         pca_mod.DensifiedOperator, "fits",
         classmethod(lambda cls, *a, **k: False),
@@ -107,6 +103,77 @@ def test_operator_cache_shared_between_auto_and_named():
     op1 = make_engine_operator(m, "sparse")
     op2 = make_engine_operator(m, "sparse")
     assert op1 is op2
-    # off-TPU, auto resolves to sparse and must share the cache entry
+    # on the CPU, auto resolves to sparse and must share the cache entry
     op3 = make_engine_operator(m, "auto")
     assert op3 is op1
+
+
+def test_platform_gpu_enables_the_ladder(monkeypatch):
+    import jax
+
+    from single_algebra_tpu import platform
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert platform.backend() == "gpu"
+    assert platform.engine_ladder()
+
+
+def test_platform_cpu_keeps_sparse():
+    from single_algebra_tpu import platform
+
+    assert platform.backend() == "cpu"
+    assert not platform.engine_ladder()
+    # the CPU reports no memory limit: the budgets take their fixed sizes
+    assert platform.device_memory_limit() is None
+    assert DensifiedOperator.hbm_budget_bytes() == 9 << 30
+    assert GramPCAEngine.hbm_budget_bytes() == 12 << 30
+    m = _m(n=500, p=200)
+    m._operator_cache = {}
+    from single_algebra_tpu.linalg import SparseOperator
+
+    assert isinstance(make_engine_operator(m, "auto"), SparseOperator)
+
+
+@pytest.mark.parametrize("name", ["rocm", "METAL", "neuron"])
+def test_platform_other_backends_raise(monkeypatch, name):
+    import jax
+
+    from single_algebra_tpu import platform
+
+    monkeypatch.setattr(jax, "default_backend", lambda: name)
+    with pytest.raises(RuntimeError, match="unsupported JAX backend"):
+        platform.engine_ladder()
+    m = _m(n=500, p=200)
+    m._operator_cache = {}
+    with pytest.raises(RuntimeError, match="unsupported JAX backend"):
+        make_engine_operator(m, "auto")
+
+
+def test_platform_gpu_without_memory_stats_raises(monkeypatch):
+    """A GPU that reports no memory limit is an error, not a guess."""
+
+    import jax
+
+    from single_algebra_tpu import platform
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        DensifiedOperator.hbm_budget_bytes()
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        GramPCAEngine.hbm_budget_bytes()
+
+
+def test_platform_gpu_budgets_follow_memory_stats(monkeypatch):
+    import jax
+
+    from single_algebra_tpu import platform
+
+    class _Dev:
+        def memory_stats(self):
+            return {"bytes_limit": 10 << 30}
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "devices", lambda *a: [_Dev()])
+    assert platform.device_memory_limit() == 10 << 30
+    assert DensifiedOperator.hbm_budget_bytes() == int((10 << 30) * 0.6)
+    assert GramPCAEngine.hbm_budget_bytes() == int((10 << 30) * 0.8)

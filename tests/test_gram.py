@@ -1,4 +1,4 @@
-"""Gram-engine tests (Pallas interpret mode on CPU).
+"""Gram-engine tests.
 
 The Gram path is an EXACT PCA (eigendecomposition of A^T A restricted to
 the top-k subspace), so its parity bar against sklearn's full SVD is
@@ -164,7 +164,7 @@ def test_gram_inexact_values_f32_path():
 
 
 def test_gram_int8_path_exact():
-    """Integer values in [-127, 127] gate the int8 MXU Gram path, whose
+    """Integer values in [-127, 127] gate the int8 Gram tier, whose
     slab products are bit-exact (int8 x int8 -> int32); the whole Gram
     must match the f64 reference exactly up to f32 cross-slab rounding —
     at this size, one slab, so exactly."""

@@ -1,4 +1,4 @@
-"""Mesh-sharded pipeline stages == single-device stages (VERDICT r3 #5).
+"""Mesh-sharded pipeline stages == single-device stages.
 
 Every stage in ``parallel/pipeline.py`` is pinned against its
 single-device counterpart on the virtual 8-device CPU mesh, plus

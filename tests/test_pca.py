@@ -250,8 +250,7 @@ def test_csc_input(data):
 
 
 def test_tiled_engine_matches_sparse(data):
-    """The Pallas tiled engine (interpret mode on CPU) reproduces the
-    sparse-engine PCA."""
+    """The tiled engine reproduces the sparse-engine PCA."""
 
     a = SparsePCABuilder().n_components(4).svd_method(RAND).engine("sparse").build()
     b = SparsePCABuilder().n_components(4).svd_method(RAND).engine("tiled").build()

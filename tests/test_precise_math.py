@@ -1,8 +1,7 @@
 """Accuracy tests for ops.precise_math and the paths that use it.
 
 This XLA build lowers f32 ``log``/``log1p`` to ~4000-ULP fast
-approximations (measured on both the CPU and TPU backends, round 5),
-which put a 2e-5 value-parity error into ``normalize + log1p`` vs the
+approximations on the CPU, which put a 2e-5 value-parity error into ``normalize + log1p`` vs the
 reference's libm ``ln_1p`` (``/root/reference/src/sparse/csr.rs:
 1070-1079``). precise_math carries musl-derived <3-ULP ports; these
 tests pin the ULP bounds and the end-to-end parity they buy.

@@ -94,9 +94,9 @@ def test_sharded_pca_matches_sklearn():
 
 @pytest.mark.parametrize("n_rows", [5, 20, 100])
 def test_sharded_small_row_counts(n_rows):
-    """Slab bounds must clamp to n_rows: sublane rounding of the per-device
-    slab can push d*rs past the matrix end (ADVICE r1 — n=20 and n=100 on an
-    8-device mesh used to crash with IndexError)."""
+    """Slab bounds must clamp to n_rows: rounding the per-device slab up
+    to a multiple of 8 can push d*rs past the matrix end (n=20 and n=100
+    on an 8-device mesh used to crash with IndexError)."""
 
     rng = np.random.default_rng(7)
     X = sp.random(n_rows, 33, density=0.4, format="csr", dtype=np.float64,
@@ -199,7 +199,7 @@ def test_sharded_centered_operator(problem):
 
 
 def test_sharded_tiled_products(problem):
-    """ShardedTiled (Pallas tiled kernels per slab) == scipy on both
+    """ShardedTiled (tiled products per slab) == scipy on both
     product directions, including the heavy-row overflow side arrays."""
 
     from single_algebra_tpu.parallel import ShardedTiled
@@ -340,14 +340,14 @@ def test_sharded_densified_pca():
 
 
 def test_choose_sharded_engine_dtype_gate(problem, monkeypatch):
-    """dense/tiled are f32-only (bf16 split; Mosaic has no 64-bit types):
-    the auto ladder must route f64 matrices to the gather path even on a
-    TPU backend."""
+    """dense/tiled split f32 values into bf16 terms: the auto ladder must
+    route f64 matrices to the gather path even where the ladder is on."""
 
+    from single_algebra_tpu import platform
     from single_algebra_tpu.parallel import choose_sharded_engine
 
     X, m = problem  # f64 fixture
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(platform, "engine_ladder", lambda: True)
     assert choose_sharded_engine(m, make_mesh(8)) == "sparse"
     m32 = SparseMatrix.from_scipy(X.astype(np.float32))
     assert choose_sharded_engine(m32, make_mesh(8)) != "sparse"
@@ -356,7 +356,7 @@ def test_choose_sharded_engine_dtype_gate(problem, monkeypatch):
 def test_sharded_tiled_bf16_payload_products():
     """f32 matrices take the bf16 hi/lo payload in the sharded engine too
     (wt-gated): precise products stay f32-class, fast products bf16-class,
-    across the 8-device mesh (interpret kernels upcast on CPU)."""
+    across the 8-device mesh."""
 
     from single_algebra_tpu.parallel import ShardedTiled
 

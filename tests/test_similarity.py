@@ -107,7 +107,7 @@ def test_pairwise_self():
 
 
 def test_pairwise_blocked_large():
-    # forces multiple row blocks through the blocked VPU path
+    # forces multiple row blocks through the blocked elementwise path
     rng = np.random.default_rng(3)
     X = rng.standard_normal((600, 64))
     Y = rng.standard_normal((300, 64))

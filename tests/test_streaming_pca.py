@@ -285,3 +285,45 @@ def test_streaming_payload_cache_roundtrip():
             np.asarray(b.explained_variance_),
         )
         np.testing.assert_array_equal(a.col_sums(), b.col_sums())
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetch_delivers_every_item_to_a_slow_consumer(depth):
+    """The payload prefetch must hand over every built slab even when the
+    producer finishes while the queue is full (a slow device step): the
+    end marker waits for room instead of displacing a queued slab."""
+
+    import time
+
+    from single_algebra_tpu.models.streaming_pca import _prefetch
+
+    got = []
+    for item in _prefetch(iter(range(7)), depth=depth):
+        time.sleep(0.05)  # the producer runs ahead and fills the queue
+        got.append(item)
+    assert got == list(range(7))
+
+
+def test_streaming_multi_slab_chunks_match_single_slab_chunks():
+    """Chunks wider than one 8,192-row device slab (re-slabbed and
+    prefetched inside partial_fit) give the same Gram as small chunks."""
+
+    from single_algebra_tpu.models import streaming_pca as spmod
+
+    X = _matrix(n=3 * 8192 + 100, p=40, density=0.05, seed=5)
+
+    def run(chunk):
+        pca = StreamingSparsePCA(n_components=4, n_features=40, random_seed=1)
+        for r0 in range(0, X.shape[0], chunk):
+            pca.partial_fit(X[r0 : r0 + chunk])
+        pca.finalize()
+        return pca
+
+    assert X.shape[0] > 2 * spmod._SLAB
+    a, b = run(X.shape[0]), run(4096)
+    assert a._n == b._n == X.shape[0]
+    np.testing.assert_allclose(a.col_sums(), b.col_sums(), rtol=1e-12)
+    np.testing.assert_allclose(
+        np.asarray(a.explained_variance_), np.asarray(b.explained_variance_),
+        rtol=1e-5,
+    )

@@ -134,7 +134,7 @@ def test_lanczos_adaptive_converges_where_short_budget_fails():
     """Convergence-adaptive mode (tol -> while_loop with a Ritz
     stabilization test, las2's kappa analog) reaches machine precision
     without hand-tuning steps, on a spectrum where a tight fixed budget
-    visibly under-converges (VERDICT r1 #9)."""
+    visibly under-converges."""
 
     import scipy.sparse as sp
 

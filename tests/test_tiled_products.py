@@ -1,15 +1,16 @@
-"""Pallas kernel equivalence tests (interpret mode on CPU).
+"""Column-tiled ELL densify and products (``ops/tiled.py``) against scipy,
+plus the host layouts and the operator built on them."""
 
-SURVEY.md §4's prescription: every Pallas kernel is validated against the
-plain-jnp reference implementation via ``interpret=True`` so the suite runs
-without TPU hardware.
-"""
-
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from single_algebra_tpu.ops.pallas.spmm_kernel import tiled_ell_spmm_t
+from single_algebra_tpu.ops.tiled import (
+    tiled_ell_densify_t,
+    tiled_ell_rmv_t,
+    tiled_ell_spmm_t,
+)
 from single_algebra_tpu.sparse.convert import csr_to_tiled_ell_numpy
 
 
@@ -31,11 +32,9 @@ def test_tiled_spmm_matches_scipy(n, p, k, density, ct):
         X.indptr, X.indices, X.data, n, p, col_tile=ct, rows_padded_to=512
     )
     B = rng.standard_normal((p, k)).astype(np.float32)
-    kp = max(-(-k // 128) * 128, 128)
+    kp = max(-(-k // 8) * 8, 8)
     Btp = np.zeros((kp, nt * ct), np.float32)
     Btp[:k, :p] = B.T
-
-    import jax.numpy as jnp
 
     out = tiled_ell_spmm_t(
         jnp.asarray(np.ascontiguousarray(td.T)),
@@ -44,8 +43,6 @@ def test_tiled_spmm_matches_scipy(n, p, k, density, ct):
         wt=wt,
         ntiles=nt,
         col_tile=ct,
-        block_rows=512,
-        interpret=True,
     )
     ref = X @ B
     np.testing.assert_allclose(
@@ -87,9 +84,7 @@ def test_empty_matrix_tiled():
 )
 def test_tiled_rmv_matches_scipy(n, p, k, density, ct):
     """A^T @ C from the SAME row-major tiled payload (no second
-    orientation) — the one-hot tile contracted on its row axis."""
-
-    from single_algebra_tpu.ops.pallas.spmm_kernel import tiled_ell_rmv_t
+    orientation) — the densified block contracted on its row axis."""
 
     rng = np.random.default_rng(0)
     X = sp.random(
@@ -101,11 +96,9 @@ def test_tiled_rmv_matches_scipy(n, p, k, density, ct):
     )
     C = rng.standard_normal((n, k)).astype(np.float32)
     R = td.shape[0]
-    kp = max(-(-k // 128) * 128, 128)
+    kp = max(-(-k // 8) * 8, 8)
     Ctp = np.zeros((kp, R), np.float32)
     Ctp[:k, :n] = C.T
-
-    import jax.numpy as jnp
 
     out = tiled_ell_rmv_t(
         jnp.asarray(np.ascontiguousarray(td.T)),
@@ -114,8 +107,6 @@ def test_tiled_rmv_matches_scipy(n, p, k, density, ct):
         wt=wt,
         ntiles=nt,
         col_tile=ct,
-        block_rows=512,
-        interpret=True,
     )
     ref = X.T @ C
     np.testing.assert_allclose(
@@ -177,34 +168,86 @@ def test_tiled_split_widths_matches_build():
     assert n_over == int((ovd != 0).sum())
 
 
-def test_tiled_kernels_reject_f64_when_compiled():
-    """Mosaic has no 64-bit types; the wrappers must raise a clear
-    ValueError at the API edge instead of failing deep in lowering
-    (interpret mode — the CPU test path — still accepts f64)."""
-
-    from single_algebra_tpu.ops.pallas.spmm_kernel import (
-        tiled_ell_densify_t,
-        tiled_ell_rmv_t,
+def _tiled(X, ct, rows_padded_to=512):
+    n, p = X.shape
+    td, tl, wt, nt = csr_to_tiled_ell_numpy(
+        X.indptr, X.indices, X.data, n, p, col_tile=ct,
+        rows_padded_to=rows_padded_to,
+    )
+    return (
+        jnp.asarray(np.ascontiguousarray(td.T)),
+        jnp.asarray(np.ascontiguousarray(tl.T)),
+        wt,
+        nt,
     )
 
-    td = np.zeros((8, 128), np.float64)
-    tl = np.zeros((8, 128), np.int32)
-    B = np.zeros((8, 128), np.float64)
-    with pytest.raises(ValueError, match="64-bit"):
-        tiled_ell_spmm_t(td, tl, B, wt=8, ntiles=1, col_tile=128,
-                         block_rows=128, interpret=False)
-    with pytest.raises(ValueError, match="64-bit"):
-        tiled_ell_rmv_t(td, tl, B, wt=8, ntiles=1, col_tile=128,
-                        block_rows=128, interpret=False)
-    with pytest.raises(ValueError, match="64-bit"):
-        tiled_ell_densify_t(td, tl, wt=8, ntiles=1, col_tile=128,
-                            block_rows=128, out_dtype=np.float64,
-                            interpret=False)
+
+def test_tiled_f64_products_match_scipy():
+    """f64 payloads run both products in f64 (the suite enables x64):
+    agreement with scipy at 1e-10."""
+
+    rng = np.random.default_rng(2)
+    n, p, k, ct = 700, 450, 9, 128
+    X = sp.random(n, p, density=0.06, format="csr", dtype=np.float64,
+                  random_state=rng, data_rvs=rng.standard_normal)
+    td, tl, wt, nt = _tiled(X, ct, rows_padded_to=1024)
+    assert td.dtype == jnp.float64
+    R = td.shape[1]
+    B = rng.standard_normal((p, k))
+    C = rng.standard_normal((n, k))
+    Bt = np.zeros((k, nt * ct))
+    Bt[:, :p] = B.T
+    Ct = np.zeros((k, R))
+    Ct[:, :n] = C.T
+    mv = tiled_ell_spmm_t(td, tl, jnp.asarray(Bt), wt=wt, ntiles=nt,
+                          col_tile=ct)
+    rmv = tiled_ell_rmv_t(td, tl, jnp.asarray(Ct), wt=wt, ntiles=nt,
+                          col_tile=ct)
+    assert mv.dtype == jnp.float64 and rmv.dtype == jnp.float64
+    np.testing.assert_allclose(np.asarray(mv)[:, :n].T, X @ B,
+                               rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(np.asarray(rmv)[:p], X.T @ C,
+                               rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize(
+    "dtype,values",
+    [
+        (jnp.int8, "counts"),
+        (jnp.bfloat16, "counts"),
+        (jnp.float32, "uniform"),
+    ],
+)
+def test_tiled_densify_matches_scipy(dtype, values):
+    """The densified slab equals the scipy matrix exactly in each tier's
+    dtype (no two updates share an element; padding slots are dropped)."""
+
+    rng = np.random.default_rng(4)
+    n, p, ct = 300, 700, 256
+    rvs = (
+        (lambda s: rng.integers(1, 128, s).astype(np.float64))
+        if values == "counts" else rng.random
+    )
+    X = sp.random(n, p, density=0.05, format="lil", dtype=np.float64,
+                  random_state=rng, data_rvs=rvs)
+    X[3, :] = 0.0  # an empty row amid populated ones
+    X = X.tocsr().astype(np.float32)
+    td, tl, wt, nt = _tiled(X, ct)
+    D = tiled_ell_densify_t(td, tl, wt=wt, ntiles=nt, col_tile=ct,
+                            out_dtype=dtype)
+    assert D.shape == (nt * ct, td.shape[1]) and D.dtype == dtype
+    full = np.asarray(D.astype(jnp.float32), np.float64)
+    ref = np.asarray(
+        jnp.asarray(X.toarray()).astype(dtype).astype(jnp.float32), np.float64
+    )
+    np.testing.assert_array_equal(full[:p, :n].T, ref)
+    # padded columns and rows stay zero
+    assert not full[p:].any() and not full[:, n:].any()
 
 
 def test_tiled_payload_split_gated_on_width():
     """f32 payloads split to bf16 hi/lo only at wt <= BF16_WT_MAX (the
-    measured crossover where the MXU-pass saving beats the bf16 densify
+    crossover where the bf16 matmul saving beats the bf16 densify
     overhead); wide payloads and f64 stay unsplit."""
 
     from single_algebra_tpu.linalg.operators import TiledSparseOperator as T
